@@ -1,4 +1,4 @@
-"""Query-path benchmarks: HNSW lockstep beam vs Flat (MXU brute force) vs
+"""Query-path benchmarks: HNSW lockstep beam vs Flat (matmul brute force) vs
 IVF-Flat, QPS over batch sizes and ef/probe settings, with recall against
 exact ground truth. No reference analogue (the reference serves one query
 at a time, README ~300 req/s).
@@ -66,7 +66,7 @@ for B in BATCHES:
         )
 
     bench_device(
-        f"Flat (MXU) B={B} (recall 1.000)",
+        f"Flat (matmul) B={B} (recall 1.000)",
         lambda q: jnp.sum(_flat_search(q, flat.codes, flat.scales, flat._normsq, K, False)[1]),
         q, unit_count=B,
     )
@@ -75,6 +75,6 @@ for B in BATCHES:
     r = recall(ids)
     bench_device(
         f"IVF-Flat B={B} probe=8/32 (recall {r:.3f})",
-        lambda q: jnp.sum(_ivf_search(q, ivf.centroids, ivf.blocks, ivf.block_ids, 8, K)[1]),
+        lambda q: jnp.sum(_ivf_search(q, ivf.centroids, ivf.blocks, ivf.bscales, ivf.block_ids, 8, K)[1]),
         q, unit_count=B,
     )

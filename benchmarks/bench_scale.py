@@ -42,8 +42,7 @@ print(f"N={N} d={D} M={M} ef_cons={EF_CONS}", flush=True)
 def build():
     idx = HNSW(M, ef_cons=EF_CONS, dim=D)
     idx.insert_bulk(vectors)
-    for a in idx.graph.adjs:
-        int(jnp.sum(jnp.abs(a) % 7))
+    jax.block_until_ready(idx.graph.adjs)
     return idx
 
 
@@ -78,11 +77,11 @@ print(f"{'ef':>4s} {'recall@10':>10s} {'QPS':>12s}")
 for ef in (16, 32, 64, 128):
     _, ann = index.ann_batch(queries, K, ef)
     rec = np.mean([len(set(a) & set(t)) / K for a, t in zip(ann, truth)])
-    int(search_sum(q, ef))
+    jax.block_until_ready(search_sum(q, ef))
     t0 = time.time()
     it = 0
     while time.time() - t0 < 3.0:
-        int(search_sum(q, ef))
+        jax.block_until_ready(search_sum(q, ef))
         it += 1
     qps = B * it / (time.time() - t0)
     print(f"{ef:4d} {rec:10.3f} {qps:12.0f}", flush=True)
@@ -98,10 +97,10 @@ def flat_sum(q):
 
 
 f = jax.jit(flat_sum)
-int(f(q))
+jax.block_until_ready(f(q))
 t0 = time.time()
 it = 0
 while time.time() - t0 < 3.0:
-    int(f(q))
+    jax.block_until_ready(f(q))
     it += 1
 print(f"flat exact: {B * it / (time.time() - t0):12.0f} qps", flush=True)

@@ -1,7 +1,7 @@
 """Distance-kernel microbenchmarks — the ``vectors`` criterion suite
 analogue (``vectors/benches/vector_benchmarks.rs:1-73``): L2 one-to-one
 and one-to-many, full precision vs quantized, dims {8..2048} — but batched
-the TPU way (one scalar pair at a time would only measure dispatch).
+(one scalar pair at a time would only measure dispatch).
 
 Run: python benchmarks/bench_vectors.py [--cpu] [--quick]
 """
@@ -52,7 +52,7 @@ for d in DIMS:
         a, cm, sm, unit_count=B * C,
     )
     bench_device(
-        f"quant L2 1-to-{C} d={d} MXU (x{B})",
+        f"quant L2 1-to-{C} d={d} matmul (x{B})",
         lambda a, cm, sm: jnp.sum(pairwise_l2sq_mxu(a, cm, sm)),
         a, cm, sm, unit_count=B * C,
     )

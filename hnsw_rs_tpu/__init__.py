@@ -1,11 +1,11 @@
-"""hnsw_rs_tpu — a TPU-native HNSW approximate-nearest-neighbor engine.
+"""hnsw_rs_tpu — a batched HNSW approximate-nearest-neighbor engine.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the
-reference Rust workspace (Gumo-A/hnsw_rs): quantized vector storage, HNSW
-index construction (bulk + incremental), batched greedy-beam queries,
-persistence, and GloVe evaluation — redesigned for TPU hardware (dense
-adjacency arrays in HBM, lockstep batched traversal, MXU distance kernels,
-mesh-sharded scale-out) rather than ported.
+A JAX/XLA implementation with the capabilities of the reference Rust
+workspace (Gumo-A/hnsw_rs): quantized vector storage, HNSW index
+construction (bulk + incremental), batched greedy-beam queries,
+persistence, and GloVe evaluation — redesigned for an accelerator (dense
+adjacency arrays in device memory, lockstep batched traversal, matmul
+distance kernels, mesh-sharded scale-out) rather than ported.
 
 Layer map (mirrors SURVEY.md §1):
 - ``ops``      — numeric kernels (the ``vectors`` crate analogue)
@@ -20,15 +20,12 @@ Layer map (mirrors SURVEY.md §1):
 def _disable_numpy_thp_madvise() -> None:
     """Stop numpy from madvise(MADV_HUGEPAGE)-ing large allocations.
 
-    On this VM class (firecracker, THP enabled=madvise defrag=madvise)
-    every 2 MB hugepage fault triggers synchronous compaction: a fresh
-    384 MB numpy buffer takes ~11-18 s to first-touch vs ~0.3 s with the
-    madvise disabled — a measured 56x swing that dominated the host-side
-    build phases (quantize temps, member tables) and is the root cause
-    of the "host CPU state swings ~3x between sessions" mystery in
-    DEVNOTES (it tracks host memory fragmentation, not CPU load).
-    Big-array THP upside is negligible next to that; opt back in with
-    HNSW_NUMPY_HUGEPAGE=1. Runtime toggle (not the NUMPY_MADVISE_HUGEPAGE
+    On hosts with THP enabled=madvise and defrag=madvise, every 2 MB
+    hugepage fault triggers synchronous compaction, so first-touching a
+    large fresh numpy buffer can take tens of times longer than with the
+    madvise disabled, and host-side build phases (quantize temps, member
+    tables) then vary with host memory fragmentation. Big-array THP upside
+    is negligible next to that; opt back in with HNSW_NUMPY_HUGEPAGE=1. Runtime toggle (not the NUMPY_MADVISE_HUGEPAGE
     env var) because the interpreter's sitecustomize imports numpy
     before any user code runs."""
     import os as _os

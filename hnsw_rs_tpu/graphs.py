@@ -1,6 +1,6 @@
 """Layered graph topology as dense fixed-slot adjacency arrays.
 
-TPU-native redesign of the reference's ``Graph``/``Layers``
+device-native redesign of the reference's ``Graph``/``Layers``
 (``graph/src/graph.rs:12-16``, ``graph/src/layers.rs:8-11``). The reference
 stores one ``IntMap<NodeID, Arc<Mutex<IntSet<NodeID>>>>`` per layer and
 serializes it as fixed ``m``-slot rows padded with ``NodeID::MAX``

@@ -20,7 +20,7 @@ Faithful array reimplementation of ``Searcher::select_heuristic``
 
 The accept loop is evaluated in static chunks of G candidates: all
 distances the sequential accept chain can need are precomputed with two
-MXU matmuls per chunk ([B, G, m] vs already-selected and the [B, G, G]
+matmuls per chunk ([B, G, m] vs already-selected and the [B, G, G]
 intra-chunk pairwise matrix), then the chain resolves exactly with a
 first-passer loop of [B, G] elementwise updates — one iteration per
 acceptance, no per-acceptance matvec (see the inline note in
@@ -115,7 +115,7 @@ def build_candidate_pool_packed(
     (``search.pack_layer``): ONE wide row gather per beam entry supplies
     its neighbors' ids, codes AND scales, so the extend step costs
     ``B*ef`` row gathers instead of ``B*ef*cap`` — the same row-rate
-    argument as serving (DEVNOTES), applied to construction. Distances
+    argument as serving, applied to construction. Distances
     are bit-identical to the plain path (same codes/scales feed the same
     dequantize + l2sq)."""
     if not extend:
@@ -232,9 +232,9 @@ def _accept_from_pool(
     # positions < p), but within a static chunk of G candidates every
     # distance the chain can ever need is one of:
     #   (a) candidate -> already-selected (previous chunks): one [B, G, m]
-    #       MXU matmul at chunk entry, reduced to a running (min d2, tie-min
+    #       matmul at chunk entry, reduced to a running (min d2, tie-min
     #       id) per candidate;
-    #   (b) candidate -> candidate within the chunk: one [B, G, G] MXU
+    #   (b) candidate -> candidate within the chunk: one [B, G, G]
     #       matmul (the pairwise matrix P).
     # The chain then resolves with a first-passer while_loop that iterates
     # only on acceptances (<= m per query; lockstep cost = Σ_chunks
@@ -243,8 +243,9 @@ def _accept_from_pool(
     # (A G-step scan resolving every position is NOT faster: G tiny steps
     # cost the same wall-clock as ~m heavier ones — measured.)
     # G trades chunk count (lockstep cost = Σ_chunks max-acceptances) against
-    # the [B, G, G] pairwise temp (1 GB at B=4096/G=256); 128 is the measured
-    # sweet spot, HNSW_ACCEPT_CHUNK overrides for experiments.
+    # the [B, G, G] pairwise temp (1 GB at B=4096/G=256); 128 was the
+    # sweet spot on the previous accelerator and is unmeasured on the GPU;
+    # HNSW_ACCEPT_CHUNK overrides for experiments.
     g = min(_ACCEPT_CHUNK, c)
     nchunks = -(-c // g)
     cp = nchunks * g
@@ -296,7 +297,7 @@ def _accept_from_pool(
         cnormsq = jnp.sum(cvecs * cvecs, axis=-1)  # [B, G]
 
         # (a) running near = (min_s d(e, s), tie-min id) vs the selected
-        # set from previous chunks, on the MXU (the broadcast form would
+        # set from previous chunks, as a matmul (the broadcast form would
         # materialize a [B, G, m, d] temp, gigabytes per eval)
         es = jax.lax.dot_general(
             cvecs, sel_vecs, (((2,), (2,)), ((0,), (0,))),
@@ -314,7 +315,7 @@ def _accept_from_pool(
             axis=-1,
         )
 
-        # (b) intra-chunk pairwise distances, one MXU matmul
+        # (b) intra-chunk pairwise distances, one matmul
         cc = jax.lax.dot_general(
             cvecs, cvecs, (((2,), (2,)), ((0,), (0,))),
             preferred_element_type=jnp.float32,
@@ -366,8 +367,8 @@ def _accept_from_pool(
         )
 
         # pack this chunk's acceptances into the selected arrays: slot =
-        # entry count + rank among accepted; the [B, G, m] one-hot rides
-        # the MXU to scatter vectors without a [B, G, m, d] temp
+        # entry count + rank among accepted; the [B, G, m] one-hot is a
+        # matmul that scatters vectors without a [B, G, m, d] temp
         nacc_in = nacc - jnp.sum(taken, axis=1)
         slot = nacc_in[:, None] + jnp.cumsum(taken.astype(jnp.int32), axis=1) - 1
         onehot = jnp.logical_and(taken[:, :, None], slot[:, :, None] == m_iota)

@@ -1,5 +1,5 @@
-"""Index model families: exact flat search (MXU brute force), the HNSW
-graph index, IVF-Flat (inverted file, the TPU-native block design), and
+"""Index model families: exact flat search (matmul brute force), the HNSW
+graph index, IVF-Flat (inverted file, the device-native block design), and
 the out-of-core paged HNSW reader."""
 
 from .flat import FlatIndex

@@ -1,20 +1,20 @@
 """IVF-Flat: inverted-file index with exact in-list distances.
 
 A second index family beyond HNSW/Flat, added because it is the natural
-TPU-first ANN design (in the spirit of TPU-KNN/ScaNN): HNSW's per-neighbor
-row gathers are latency/row-rate bound on TPU, while IVF reads whole
-*contiguous* cluster blocks — every byte moved is a big sequential DMA and
-every FLOP is a batched matmul on the MXU:
+accelerator-first ANN design (in the spirit of ScaNN): HNSW's
+per-neighbor row gathers are latency bound, while IVF reads whole
+*contiguous* cluster blocks — every byte moved is a big sequential copy
+and every FLOP is a batched matmul:
 
 1. coarse quantizer: k-means centroids, trained on device (batched
    Lloyd's iterations — assignment is one matmul + argmin, update is one
    scatter-add);
 2. storage: points sorted by list, padded per-list to a fixed width, so a
    "probe" is a single [Lmax, d] block load. Blocks are stored QUANTIZED
-   (u8 codes + per-point scales, 4x less HBM moved per probe) by default;
+   (u8 codes + per-point scales, 4x fewer bytes moved per probe) by default;
    ``quantized_blocks=False`` keeps a dequantized f32 copy instead —
    distances are identical either way (dequantization is exact);
-3. search: centroid distances [B, C] on the MXU -> top-``n_probe`` lists
+3. search: centroid distances [B, C] as a matmul -> top-``n_probe`` lists
    -> gather those blocks -> fused distances -> top-k (dist, id) sort.
 
 Supports incremental :meth:`add` after training — amortized O(1) per
@@ -48,7 +48,8 @@ from ..ops.topk import INF, PAD_ID, sort_dist_id
 # this many bytes the coarse quantizer routes through the cluster
 # builder's scale-safe kmeans (subsampled Lloyd + chunked scatter-free
 # assignment, build_cluster.kmeans) instead — at 1M x 8192 lists the
-# dense block would be 32 GB, ~4x usable HBM (DEVNOTES). Module-level so
+# dense block would be 32 GB. The 1 GiB value was sized for a device with
+# far less memory than 80 GB (ROADMAP queue 2 item 2). Module-level so
 # tests can force the chunked path at toy sizes.
 DENSE_KMEANS_LIMIT = 1 << 30
 
@@ -95,7 +96,7 @@ def _kmeans(x: jnp.ndarray, init_idx: jnp.ndarray, c: int, iters: int):
 
 @jax.jit
 def _assign_jit(x: jnp.ndarray, centroids: jnp.ndarray) -> jnp.ndarray:
-    """Nearest-centroid assignment: one MXU matmul + argmin."""
+    """Nearest-centroid assignment: one matmul + argmin."""
     d2 = (
         jnp.sum(x * x, 1, keepdims=True)
         - 2.0 * jnp.dot(x, centroids.T, preferred_element_type=jnp.float32,
@@ -108,8 +109,9 @@ def _assign_jit(x: jnp.ndarray, centroids: jnp.ndarray) -> jnp.ndarray:
 # One-shot [B, p, Lmax, d] f32 scoring temp cap for _ivf_search: under
 # it, every probed list is scored in one fused pass and results get one
 # exact (d2, id) sort — the bit-exact path every unit test runs. Above
-# it (1M-scale serving batches: 32k queries x Lmax 2k+ x d 96 is ~29 GB,
-# measured OOM at compile), the scanned/chunked path below takes over.
+# it (1M-scale serving batches: 32k queries x Lmax 2k+ x d 96 is ~29 GB),
+# the scanned/chunked path below takes over. Like DENSE_KMEANS_LIMIT, the
+# value predates 80 GB devices (ROADMAP queue 2 item 2).
 DENSE_IVF_SEARCH_LIMIT = 1 << 30
 
 
@@ -152,8 +154,8 @@ def _ivf_search(q, centroids, blocks, bscales, block_ids, n_probe: int, k: int):
     # the probed block is gathered ONCE per step as u8 (its cheap form);
     # only the dequantize+l2sq runs in slices of that materialized array.
     # (Slicing the GATHER itself — blocks[li, c0:c0+ch] — materializes a
-    # [C, ch, d] copy of the sliced table per chunk: measured 19x slower
-    # at 1M/B=4096. DEVNOTES "IVF at 1M".)
+    # [C, ch, d] copy of the sliced table per chunk, measured far slower
+    # at 1M/B=4096.)
     ch = min(lmax, max(64, (1 << 29) // max(b * d * 4, 1)))
 
     def step(carry, pi):
@@ -231,8 +233,7 @@ class IVFFlatIndex:
         # quantize on HOST (native C++ kernel, bit-matched to the device
         # path — tests/test_quant.py): uploads u8 codes (4x less than
         # f32 vectors) and keeps the numpy copies _pack needs, instead
-        # of fetching 96 MB of codes back through a ~5 MB/s dev link
-        # (DEVNOTES) after a device-side quantize
+        # of fetching the codes back after a device-side quantize
         codes_np, scales_np = quantize_np(vectors)
         self.codes = jnp.asarray(codes_np)
         self.scales = jnp.asarray(scales_np)

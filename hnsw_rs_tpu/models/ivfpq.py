@@ -2,10 +2,10 @@
 scaling story (beyond the reference's u8-per-dimension ceiling,
 ``vectors/src/quant.rs``: 1 byte/dim; PQ stores ``m_pq`` bytes/POINT).
 
-TPU-native layout and math:
+Layout and math:
 
 - coarse quantizer: k-means centroids trained on device (shared
-  ``models.ivf._kmeans`` — assignment is one MXU matmul + argmin);
+  ``models.ivf._kmeans`` — assignment is one matmul + argmin);
 - product quantizer: the RESIDUAL (x - coarse centroid) is split into
   ``m_pq`` subspaces; each subspace gets a 256-entry codebook trained on
   device (batched Lloyd's per subspace, all subspaces vmapped at once).
@@ -14,7 +14,7 @@ TPU-native layout and math:
 - search (ADC): per query × probed list, the distance decomposes as
   ``d2(q, x) ≈ Σ_m ||q_m - r_m - cb_m[c_m]||²`` which needs only the
   per-subspace lookup table ``LUT[b, m, v] = ||(q - centroid)_m -
-  cb_m[v]||²`` — built with ONE batched MXU matmul against the codebooks
+  cb_m[v]||²`` — built with ONE batched matmul against the codebooks
   — and a [B, L, m_pq] table take along the code axis. Optionally the
   top-``rerank`` ADC candidates are re-scored EXACTLY against the u8
   codes kept host-side... no: rerank uses an optional exact code table
@@ -72,8 +72,11 @@ def _ivfpq_search(
     )
     _, probe = jax.lax.top_k(-cd2, n_probe)  # [B, p]
     cbn = jnp.sum(codebooks * codebooks, -1)  # [m_pq, 256]
-    qr = jnp.dot(q, rot, preferred_element_type=jnp.float32)
-    centr = jnp.dot(centroids, rot, preferred_element_type=jnp.float32)
+    # HIGHEST: the ADC scores below rank the returned candidates
+    qr = jnp.dot(q, rot, preferred_element_type=jnp.float32,
+                 precision=jax.lax.Precision.HIGHEST)
+    centr = jnp.dot(centroids, rot, preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST)
 
     # bound the [B, m, chunk] LUT-take temp (i32 indices + f32 values,
     # ~8 B per cell): one un-chunked take at 1M-scale serving batches is
@@ -82,21 +85,21 @@ def _ivfpq_search(
     # take runs in slices, and its per-chunk d2 pieces concatenate back
     # to the full [B, Lmax] row for the exact two-key running merge —
     # identical results to the one-shot take at every chunk size.
-    # (An earlier variant that sliced the gather itself and pre-reduced
-    # per chunk with lax.top_k faulted the TPU worker at 1M — DEVNOTES
-    # "IVF at 1M".)
+    # (An earlier variant sliced the gather itself and pre-reduced per
+    # chunk with lax.top_k.)
     lmax = blocks.shape[1]
     ch = min(lmax, max(64, (1 << 29) // max(b * m_pq * 8, 1)))
 
     def step(carry, pi):
         bd, bi = carry
         pl = probe[:, pi]  # [B] list index for this probe rank
-        # LUT[b, m, v] for this probe: one batched MXU matmul
+        # LUT[b, m, v] for this probe: one batched matmul
         resid = qr - centr[pl]  # [B, d] (rotated space)
         rs = resid.reshape(b, m_pq, ds)
         cross = jnp.einsum(
             "bms,mvs->bmv", rs, codebooks,
             preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )
         lut = jnp.sum(rs * rs, -1)[..., None] - 2.0 * cross + cbn[None]
         cand = blocks[pl]  # [B, Lmax, m_pq] u8 — one contiguous gather
@@ -217,7 +220,8 @@ class IVFPQIndex:
                 opq_iters=self.opq_iters, seed=self.seed, train_n=ts,
             )
             res_flat = jnp.dot(
-                res_flat, self.rot, preferred_element_type=jnp.float32
+                res_flat, self.rot, preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.DEFAULT,  # encoding input
             )
         else:
             self.rot = jnp.eye(self.dim, dtype=jnp.float32)
@@ -262,9 +266,11 @@ class IVFPQIndex:
         codes, scales = quantize(jnp.asarray(vectors))
         x = dequantize(codes, scales)
         assign = np.asarray(_assign_jit(x, self.centroids))
+        # DEFAULT precision: encoding input, inside PQ's own error
         res = jnp.dot(
             x - self.centroids[jnp.asarray(assign)], self.rot,
             preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.DEFAULT,
         ).reshape(n_new, self.m_pq, self.dim // self.m_pq)
         pq_codes = np.asarray(_pq_encode(res, self.codebooks))
         start = self._n
@@ -430,6 +436,7 @@ class IVFPQIndex:
             res = jnp.dot(
                 x - index.centroids[jnp.asarray(index._assign)], index.rot,
                 preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.DEFAULT,  # as in add()
             ).reshape(index._n, index.m_pq, index.dim // index.m_pq)
             index._pack(np.asarray(_pq_encode(res, index.codebooks)))
         return index

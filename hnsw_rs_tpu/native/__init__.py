@@ -120,8 +120,8 @@ def quantize_rows(x: "np.ndarray"):
     fastio.cpp): returns (codes u8[n, d], scales f32[n, 2]) bit-identical
     to ``ops.quant.quantize_np``, or None when the native library is
     unavailable (callers fall back to numpy). Exists because the numpy
-    pipeline's ~6 full-size passes cost ~13 s at 1M x 96 on this 1-core
-    host — a top-2 component of the bulk-build wall (DEVNOTES)."""
+    pipeline makes ~6 full-size passes over the data, a large host-side
+    share of a bulk build."""
     lib = get_lib()
     if lib is None:
         return None

@@ -239,7 +239,7 @@ extern "C" {
 
 // Builds the index single-threaded; returns elapsed seconds for the
 // insert loop (quantization + level sampling excluded, matching how the
-// TPU builder's rate is measured from store-ready state). out_rate_vps
+// device builder's rate is measured from store-ready state). out_rate_vps
 // receives vectors/second. Returns 0 on success.
 int hnsw_baseline_build(const float* vecs, int64_t n, int64_t d,
                         int m, int ef_cons, uint64_t seed,

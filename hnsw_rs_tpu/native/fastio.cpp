@@ -2,7 +2,7 @@
 //
 // The reference implements its data loaders in native (Rust) code
 // (hnsw/src/helpers/glove.rs:14-71 — text embedding parsing); this is the
-// C++ equivalent for the TPU framework's host runtime: a memory-mapped,
+// C++ equivalent for the framework's host runtime: a memory-mapped,
 // single-pass GloVe text parser (~30-50x the pure-Python loader), plus a
 // block codec used by the paged on-disk store (the BlockPoints analogue,
 // points/src/points/block_points.rs).

@@ -1,4 +1,4 @@
-"""Numeric kernel layer (TPU-native analogue of the reference's ``vectors``
+"""Numeric kernel layer (device-native analogue of the reference's ``vectors``
 crate): quantization, fused L2 distance kernels, and ordered (dist, id)
 selection primitives."""
 

@@ -1,11 +1,11 @@
 """Batched L2 distance kernels over quantized vectors.
 
-TPU-native equivalent of ``QuantVec::distance_unrolled``
+device-native equivalent of ``QuantVec::distance_unrolled``
 (``vectors/src/quant.rs:14-37``) and ``FullVec::distance``
 (``vectors/src/full.rs:23-29``). The reference dequantizes on the fly inside
 an 8-lane unrolled scalar loop; here the same math is expressed as dense
-array ops so XLA fuses dequantize + subtract + square + reduce onto the VPU,
-and the all-pairs form rides the MXU as a matmul.
+array ops so XLA fuses dequantize + subtract + square + reduce,
+and the all-pairs form is a matmul.
 
 Distances are computed and compared as *squared* L2 internally (monotonic in
 the true distance, so every ordering/threshold decision is unchanged);
@@ -52,7 +52,7 @@ def pairwise_l2sq_exact(
     Numerically exact (no |a|^2+|b|^2-2ab cancellation); used as the
     ground-truth oracle for recall tests (the batched analogue of
     ``brute_force_nns``, ``hnsw/src/helpers/glove.rs:73-109``).
-    Memory: materializes [B, N, d]; keep B modest or use the MXU form.
+    Memory: materializes [B, N, d]; keep B modest or use the matmul form.
     """
     x = dequantize(codes, scales)  # [N, d]
     diff = q[:, None, :] - x[None, :, :]
@@ -65,11 +65,11 @@ def pairwise_l2sq_mxu(
     scales: jnp.ndarray,
     normsq: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
-    """All-pairs squared L2 via the MXU: |q|^2 + |x|^2 - 2 q.x -> [B, N].
+    """All-pairs squared L2 via one matmul: |q|^2 + |x|^2 - 2 q.x -> [B, N].
 
     Exploits the affine structure of the quantized points
     (``x_j = delta_j * c_j + min_j``) so the only O(B*N*d) work is one
-    ``q @ codes.T`` matmul on the systolic array:
+    ``q @ codes.T`` matmul:
 
         q.x_j = delta_j * (q . c_j) + min_j * sum(q)
 
@@ -80,8 +80,9 @@ def pairwise_l2sq_mxu(
     delta = scales[:, 1]
     if normsq is None:
         normsq = point_normsq(codes, scales)
-    # HIGHEST keeps the contraction in true f32 (TPU default would drop the
-    # operands to bf16 and a ~0.4% mantissa error flips near-tie orderings).
+    # HIGHEST keeps the contraction in true f32: the default lets the GPU
+    # run it in TF32, whose ~0.05% operand rounding is amplified by the
+    # affine expansion's cancellation and flips near-tie orderings.
     qdotc = jnp.dot(
         q,
         codes.astype(jnp.float32).T,

@@ -6,14 +6,14 @@ one byte per subspace (the id of the nearest entry in that subspace's
 256-entry codebook) — ``m_pq`` bytes/point against the reference's
 1 byte/DIM ceiling (``vectors/src/quant.rs``). Asymmetric distance
 computation (ADC) then needs only a per-query lookup table
-``LUT[m, v] = ||q_m - cb[m, v]||²`` (one batched MXU matmul against the
+``LUT[m, v] = ||q_m - cb[m, v]||²`` (one batched matmul against the
 codebooks) and a table-take along the code axis — no per-candidate
 vector fetch at all, which is what lets graph beams and IVF scans run
 over collections whose exact codes would not fit HBM.
 
-TPU-native shapes throughout: codebooks are one dense
+Dense shapes throughout: codebooks are one dense
 ``f32[m_pq, 256, ds]`` array (all subspaces train vmapped at once, every
-Lloyd step a batched MXU matmul), codes are ``u8[N, m_pq]``.
+Lloyd step a batched matmul), codes are ``u8[N, m_pq]``.
 """
 
 from __future__ import annotations
@@ -33,16 +33,19 @@ __all__ = ["pq_train", "pq_encode", "pq_decode", "train_pq", "encode_pq",
 def pq_train(res: jnp.ndarray, init_idx: jnp.ndarray, iters: int):
     """Train all m_pq sub-codebooks at once: ``res`` [N, m_pq, ds]
     (sub-)vectors, ``init_idx`` i32[256] initial rows. Returns codebooks
-    f32[m_pq, 256, ds]. vmapped batched Lloyd's — every step is an MXU
+    f32[m_pq, 256, ds]. vmapped batched Lloyd's — every step is a
     matmul batch. Empty cells keep their previous centroid."""
 
     def one(sub):  # [N, ds] -> [256, ds]
         cent = sub[init_idx]
 
         def step(c, _):
+            # DEFAULT precision (TF32 allowed): codebook training sits
+            # far inside PQ's own quantization error
             d2 = (
                 jnp.sum(sub * sub, 1, keepdims=True)
-                - 2.0 * jnp.dot(sub, c.T, preferred_element_type=jnp.float32)
+                - 2.0 * jnp.dot(sub, c.T, preferred_element_type=jnp.float32,
+                                precision=jax.lax.Precision.DEFAULT)
                 + jnp.sum(c * c, 1)[None, :]
             )
             a = jnp.argmin(d2, 1)
@@ -66,9 +69,12 @@ def pq_encode(res: jnp.ndarray, codebooks: jnp.ndarray) -> jnp.ndarray:
     entry per subspace; ties -> lowest id, deterministic)."""
 
     def one(sub, cb):  # [N, ds], [256, ds]
+        # DEFAULT precision: encoding picks a codeword, an approximation
+        # the exact rerank (or PQ's own error) owns
         d2 = (
             jnp.sum(sub * sub, 1, keepdims=True)
-            - 2.0 * jnp.dot(sub, cb.T, preferred_element_type=jnp.float32)
+            - 2.0 * jnp.dot(sub, cb.T, preferred_element_type=jnp.float32,
+                            precision=jax.lax.Precision.DEFAULT)
             + jnp.sum(cb * cb, 1)[None, :]
         )
         return jnp.argmin(d2, 1).astype(jnp.uint8)
@@ -124,8 +130,8 @@ def opq_train(
     """OPQ (Ge et al., CVPR'13): learn an orthogonal rotation ``R`` so the
     PQ subspace split loses less energy, by alternating (a) PQ
     train+encode in the rotated space with (b) the orthogonal-Procrustes
-    update ``R = U V^T`` from ``svd(x^T x_hat)``. TPU-native: every step
-    is a batched MXU matmul except one tiny [d, d] SVD.
+    update ``R = U V^T`` from ``svd(x^T x_hat)``. Every step
+    is a batched matmul except one tiny [d, d] SVD.
 
     ``x`` f32[N, d] (training sample; evenly-strided subsample of at most
     ``train_n`` rows is used). Returns ``(R f32[d, d], codebooks
@@ -152,31 +158,36 @@ def opq_train(
     init = jnp.asarray(init)
     rot = jnp.eye(d, dtype=jnp.float32)
     cb = None
+    # training products run at DEFAULT precision (TF32 allowed); the
+    # rotation itself is formed at HIGHEST so it stays orthogonal
+    train_dot = functools.partial(jnp.dot, preferred_element_type=jnp.float32,
+                                  precision=jax.lax.Precision.DEFAULT)
     for _ in range(max(opq_iters, 1)):
-        xr = jnp.dot(x, rot, preferred_element_type=jnp.float32)
+        xr = train_dot(x, rot)
         res = xr.reshape(n, m_pq, d // m_pq)
         cb = pq_train(res, init, pq_iters)
         xhat = pq_decode(pq_encode(res, cb), cb)  # [n, d] in rotated space
-        u, _, vt = jnp.linalg.svd(
-            jnp.dot(x.T, xhat, preferred_element_type=jnp.float32)
-        )
-        rot = jnp.dot(u, vt, preferred_element_type=jnp.float32)
+        u, _, vt = jnp.linalg.svd(train_dot(x.T, xhat))
+        rot = jnp.dot(u, vt, preferred_element_type=jnp.float32,
+                      precision=jax.lax.Precision.HIGHEST)
     # final codebooks against the final rotation
-    xr = jnp.dot(x, rot, preferred_element_type=jnp.float32)
+    xr = train_dot(x, rot)
     cb = pq_train(xr.reshape(n, m_pq, d // m_pq), init, pq_iters)
     return rot, cb
 
 
 def pq_lut(q: jnp.ndarray, codebooks: jnp.ndarray) -> jnp.ndarray:
     """Per-query ADC lookup table ``f32[B, m_pq, 256]``:
-    ``LUT[b, m, v] = ||q_m - cb[m, v]||²`` via one batched MXU matmul
+    ``LUT[b, m, v] = ||q_m - cb[m, v]||²`` via one batched matmul
     (the cross term) — every subsequent candidate scoring is a pure
     table take, no vector fetches."""
     b, d = q.shape
     m_pq, nv, ds = codebooks.shape
     qs = jnp.asarray(q, jnp.float32).reshape(b, m_pq, ds)
+    # HIGHEST: the table scores the candidates a query visits
     cross = jnp.einsum(
-        "bms,mvs->bmv", qs, codebooks, preferred_element_type=jnp.float32
+        "bms,mvs->bmv", qs, codebooks, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     )
     cbn = jnp.sum(codebooks * codebooks, -1)  # [m_pq, 256]
     return jnp.sum(qs * qs, -1)[..., None] - 2.0 * cross + cbn[None]
@@ -215,12 +226,10 @@ def adc_score16(lut: jnp.ndarray, packed: jnp.ndarray) -> jnp.ndarray:
     nibble-packed codes -> f32[B, C].
 
     Why this exists: :func:`adc_score`'s ``take_along_axis`` lowers to
-    B*m*C per-ELEMENT gathers, and XLA gathers are issue-rate-bound
-    (~3 ns/row regardless of width — DEVNOTES) — at serving batch sizes
-    the LUT lookups dominate the whole PQ beam (553 QPS in round 3's
-    SERVING_MEMORY.json). With 16-entry codebooks the lookup becomes an
-    unrolled 16-step compare-select — pure VPU elementwise, zero gathers,
-    one fused loop nest (the TPU-native analogue of SIMD LUT16 /
+    B*m*C per-ELEMENT gathers — at serving batch sizes the LUT lookups
+    dominate the whole PQ beam. With 16-entry codebooks the lookup becomes an
+    unrolled 16-step compare-select — pure elementwise, zero gathers,
+    one fused loop nest (the device-native analogue of SIMD LUT16 /
     4-bit-PQ ADC; beyond the reference's u8-per-dim ceiling,
     vectors/src/quant.rs)."""
     b, c, mb = packed.shape

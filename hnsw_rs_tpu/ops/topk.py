@@ -2,7 +2,7 @@
 
 The reference's entire algorithm state lives in ``BTreeSet<Dist>`` priority
 queues whose total order is *(dist asc, id asc)* (``graph/src/dist.rs:30-38``
-— ties broken by id). On TPU those become fixed-width sorted arrays and the
+— ties broken by id). On device those become fixed-width sorted arrays and the
 queue ops become ``lax.sort`` with two lexicographic keys. All helpers here
 operate on squared distances (ordering-equivalent).
 

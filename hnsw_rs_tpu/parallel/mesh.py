@@ -1,14 +1,14 @@
 """Device-mesh helpers.
 
 The reference's only parallelism is a shared-memory OS-thread pool
-(``hnsw/src/template.rs:403-440``); the TPU-native equivalents are laid out
+(``hnsw/src/template.rs:403-440``); the device-native equivalents are laid out
 over a ``jax.sharding.Mesh`` with two axes:
 
 - ``data``  — query data-parallelism: batches of queries split across
   devices, index replicated (the serving fan-out).
 - ``shard`` — index partitioning: each device owns a contiguous slice of
   the collection with its own sub-graph; queries fan out to every shard
-  and per-shard top-k results merge over ICI collectives (the memory
+  and per-shard top-k results merge over collectives (the memory
   scale-out; BASELINE.json configs 4-5).
 """
 

@@ -2,17 +2,18 @@
 
 The reference is strictly single-process (its entire "communication
 layer" is shared memory + mutexes, ``hnsw/src/template.rs:422-439``).
-The TPU-native scale-out path for BASELINE configs 4-5 (10M-100M
-vectors) is multi-host SPMD: every host runs the same program,
+The scale-out path for BASELINE configs 4-5 (10M-100M vectors) is
+multi-host SPMD: every host runs the same program,
 ``jax.distributed.initialize`` wires the GRPC coordinator, and the
 (data, shard) mesh simply spans all hosts' devices — the same
-``shard_map`` collectives then ride ICI within a slice and DCN across
-hosts with no code changes in the query/build paths.
+``shard_map`` collectives then ride the devices' interconnect within a
+host and the network across hosts with no code changes in the
+query/build paths.
 
 ``benchmarks/multihost_smoke.py`` runs the full sharded query path
 across two real OS processes on a virtual CPU mesh; the same wiring
-applies to real multi-host TPU pods (each host launches with its
-process_id, or on Cloud TPU with no args at all).
+applies to real multi-host GPU clusters, where each host launches with
+its coordinator address, process count and process_id.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def init_distributed(
     """Initialize multi-process JAX (idempotent).
 
     With no arguments, defers to ``jax.distributed.initialize()``'s
-    auto-detection (Cloud TPU metadata / env). Explicit arguments come
+    auto-detection from the cluster environment (e.g. SLURM); explicit
+    arguments come
     from the launcher (one process per host). ``local_device_count``
     forces an N-device virtual CPU backend per process (testing).
     Call BEFORE any other JAX operation.

@@ -4,7 +4,7 @@ The serving fan-out: the index arrays (codes/scales/adjacency) are
 replicated on every device, the query batch is sharded over the mesh's
 ``data`` axis, and the jitted search pipeline runs SPMD with zero
 collectives (results come back sharded over the batch). This is the
-TPU-native answer to the reference's one-query-at-a-time single-thread
+device-native answer to the reference's one-query-at-a-time single-thread
 serving loop (``hnsw/src/template.rs:306-335``, README ~300 req/s)."""
 
 from __future__ import annotations

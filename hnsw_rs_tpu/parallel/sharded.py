@@ -5,8 +5,8 @@ the collection is partitioned into contiguous shards, each shard builds an
 independent HNSW sub-graph over its slice, and a query fans out to every
 shard — each device runs the same lockstep beam search on its sub-index,
 then per-shard top-k candidates are merged with an ``all_gather`` over the
-``shard`` mesh axis and a final (dist, id) sort. Communication rides ICI
-collectives; there is no analogue in the reference (single process,
+``shard`` mesh axis and a final (dist, id) sort. Communication is XLA
+collectives (NCCL over NVLink on GPUs); there is no analogue in the reference (single process,
 ``hnsw/src/template.rs:422-439`` is its entire "communication layer").
 
 Recall note: searching S independent sub-indexes with the same ``ef`` and
@@ -86,9 +86,9 @@ def sharded_query_seeded(
     ef, k, max_iters, expand_e=1,
 ):
     """Mesh-wide pivot-seeded query over per-shard packed layouts — the
-    round-2 single-chip serving wins (packed rows + pivot seeding,
+    single-device serving path (packed rows + pivot seeding,
     ``search.ann_search_seeded``) lifted into the scale-out path: every
-    shard runs one MXU matmul against ITS pivot skeleton, seeds its local
+    shard runs one matmul against ITS pivot skeleton, seeds its local
     layer-0 beam over ITS packed rows, and the per-shard top-k merge
     rides the same ``all_gather`` + (dist, id) sort as the plain path.
 
@@ -241,8 +241,8 @@ class ShardedHNSW:
 
         ``cluster_build=True`` with ``concurrent=True`` (default) runs the
         cluster-bulk builder for EVERY shard simultaneously over the mesh
-        (``parallel.sharded_cluster`` — the measured-fastest builder per
-        shard, DEVNOTES round-3, shard_map'd). Other ``build_kwargs``
+        (``parallel.sharded_cluster`` — the fastest builder per shard,
+        shard_map'd). Other ``build_kwargs``
         (wave-schedule knobs, …) forward to the per-shard host builder
         and force the sequential path — the shard_map'd wave step owns
         its own schedule. On a real multi-host pod the sequential path
@@ -795,7 +795,7 @@ class ShardedHNSW:
         pivot_fill: str = "cover", pivot_cover: float = 0.25,
     ) -> "ShardedHNSW":
         """Build the packed + pivot-seeded serving state per shard — the
-        single-chip round-2 serving stack (``HNSW.finalize``) scaled out:
+        single-device serving stack (``HNSW.finalize``) scaled out:
         each shard gets packed layer-0 rows and its own pivot skeleton
         (its highest-level nodes, evenly subsampled to ``pivots``). A
         stale pack (after :meth:`add`) is detected and bypassed, never
@@ -835,8 +835,7 @@ class ShardedHNSW:
         # the host cluster builder, then level-based picks, then an
         # evenly-strided fill so the BUDGET is actually met (an unfilled
         # budget and level-only sampling both leave micro-regions
-        # seedless — the measured whole-query recall failure mode,
-        # DEVNOTES round-3)
+        # seedless — the measured whole-query recall failure mode)
         pid = np.full((S, pivots), -1, np.int32)
         need = np.zeros(S, np.int64)
         for s in range(S):

@@ -16,13 +16,13 @@ heavy-tailed Zipf blobs + scale spread, where serving recall plateaued
 at ~0.92 @ ef=48 / 0.99 only at ef=512), some true kNN edges never enter
 any pool, and no serving-side budget recovers them. One refinement round
 gives every node a pool its CURRENT neighborhood votes for — exactly the
-edges the k-means pools missed; reads are batched row gathers + one MXU
-matvec per node batch, all-device, a few seconds at 1M.
+edges the k-means pools missed; reads are batched row gathers + one
+matvec per node batch, all on device.
 
-TPU-native shape discipline: the round is fully synchronous (every chunk
+Shape discipline: the round is fully synchronous (every chunk
 reads the OLD adjacency, writes a fresh buffer — deterministic, no
 intra-round order effects), chunks are contiguous row ranges written
-with ``dynamic_update_slice`` (no wide scatters — DEVNOTES), and the
+with ``dynamic_update_slice`` (no wide scatters), and the
 [R, P, d] pool temp is bounded by the (batch, hop_w) knobs.
 """
 
@@ -66,7 +66,7 @@ def _refine_chunk_impl(codes, scales, adj, off, r, hop_w, pool_p, cap,
         codes[psafe.reshape(-1)], scales[psafe.reshape(-1)]
     ).reshape(r, pool.shape[1], -1)  # [r, P, d]
     # expanded matmul form: the diff-square form would materialize the
-    # same [r, P, d] temp anyway, the dot rides the MXU
+    # same [r, P, d] temp anyway, the dot is a matmul
     qc = jax.lax.dot_general(
         qvec[:, None, :], pvec, (((2,), (2,)), ((0,), (0,))),
         preferred_element_type=jnp.float32,

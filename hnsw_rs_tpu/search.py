@@ -1,6 +1,6 @@
 """Batched lockstep graph traversal — the query/build hot path.
 
-TPU-native redesign of the reference's ``Searcher``
+Batched redesign of the reference's ``Searcher``
 (``hnsw/src/template/searcher.rs``). The reference walks one query at a time
 through pointer-chased node sets using ``BTreeSet`` priority queues; here a
 whole batch of queries traverses in lockstep inside a ``lax.while_loop``:
@@ -17,7 +17,7 @@ whole batch of queries traverses in lockstep inside a ``lax.while_loop``:
 - The per-query ``visited`` ``IntSet`` becomes a dense bool[B, N] matrix
   updated with batched scatters.
 - Neighbor expansion is a batched adjacency-row gather + fused
-  dequantize-L2 (``quant.rs:14-37``) over [B, cap, d] on the VPU.
+  dequantize-L2 (``quant.rs:14-37``) over [B, cap, d].
 - Every loop has a static trip bound (XLA requirement); queries that
   converge early are masked out, and the loop exits when the whole batch
   has converged.
@@ -355,8 +355,8 @@ def search_layer(
     and merge into the beam with one two-key sort.
 
     **Visited-set design.** The reference's per-query ``IntSet`` would be a
-    bool[B, N] matrix here, but its per-iteration scatter/gather dominates
-    the loop on TPU (~2.3x whole-search cost). Instead, "already known" =
+    bool[B, N] matrix here, but its per-iteration scatter/gather would
+    dominate the loop. Instead, "already known" =
     *currently in the beam* (broadcast compare, exact) OR *in a small ring
     buffer of the last ``ring_size`` discovered ids* (approximate). This is
     exact, not approximate, in effect: the merged top-ef beam only ever
@@ -384,10 +384,9 @@ def pack_layer(
     """Build the packed-neighbor serving layout for one layer: ONE fused
     u8 row per node holding its neighbors' codes, scales and ids.
 
-    XLA's row gather is row-RATE-bound (dominated by per-row descriptor
-    issue, ~60-100 ns/row at serving batch sizes regardless of row width
-    up to ~2 KB — benchmarks/micro/bench_gather.py), so the beam loop's
-    per-expansion cost is ~(number of gathers) × B × t_row. Packing every
+    On a machine whose row gather is bound by the rate at which rows are
+    issued rather than by bytes, the beam loop's per-expansion cost is
+    ~(number of gathers) × B × t_row. Packing every
     node's neighbors' codes, scales AND ids into a single byte row turns
     ~3*cap gathers per expansion into ONE; the scale/id fields are
     bitcast back out of the gathered bytes in-register. Distances stay
@@ -401,8 +400,8 @@ def pack_layer(
 
     Assembled in row CHUNKS (scan + dynamic_update_slice): a one-shot
     gather materializes ~2x the table transiently, which at million
-    scale (5+ GB tables) is the difference between fitting HBM and
-    ResourceExhausted. The output buffer is allocated at EXACTLY [n, wrow]
+    scale (multi-GB tables) is the difference between fitting device
+    memory and ResourceExhausted. The output buffer is allocated at EXACTLY [n, wrow]
     and the last chunk is written at the OVERLAPPING offset n-ch (its
     leading rows recompute identical bytes — the row is a pure function
     of the adjacency row) instead of padding to a multiple of ch and
@@ -612,7 +611,8 @@ def pq_beam(
     disk instead of an HBM code table. Returns the full (beam_d2,
     beam_ids) — ADC-scored, callers rerank."""
     qr = q if rot is None else jnp.dot(
-        q, rot, preferred_element_type=jnp.float32
+        q, rot, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,  # feeds the ADC table
     )
     lut = pq_lut(qr, codebooks)  # [B, m_sub, nv]
     # seed SELECTION uses the exact pivot table (small, dense); seed
@@ -658,7 +658,7 @@ def ann_search_pq(
     ``q @ rot`` (``||qR - xR|| = ||q - x||``); seed selection and the
     exact rerank stay in the original space.
 
-    Pipeline: pivot seed selection (exact MXU matmul, as
+    Pipeline: pivot seed selection (exact matmul, as
     :func:`ann_search_seeded`), seeds RE-scored with ADC so the beam
     compares one consistent distance space, ADC beam over the PQ rows,
     then an exact re-score of the top ``max(k, rerank)`` survivors
@@ -691,14 +691,13 @@ def ann_search_seeded(
     max_iters: int,
     expand_e: int = 1,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Pivot-seeded serving: ONE MXU matmul against a few thousand pivot
+    """Pivot-seeded serving: ONE matmul against a few thousand pivot
     points (the upper-layer skeleton) replaces the serial greedy descent,
     and its top-ef seeds the layer-0 beam directly.
 
-    TPU-first rationale: the hierarchy's upper layers are a pointer-chase
-    (tens of sequential gather rounds, each paying the row-issue floor);
-    an all-pivots distance matrix is one dense [B, P] matmul the MXU eats
-    for free, and starting the beam with ef GOOD candidates instead of
+    Rationale: the hierarchy's upper layers are a pointer-chase (tens of
+    sequential gather rounds); an all-pivots distance matrix is one dense
+    [B, P] matmul, and starting the beam with ef GOOD candidates instead of
     one skips the coarse navigation phase entirely. Same layer-0 beam
     semantics afterwards (``search_layer_packed``); the reference's
     hierarchy role (``template.rs:306-335``, layers > 0) is what this
@@ -714,10 +713,9 @@ def ann_search_seeded(
     same id — downstream exact-distance comparisons must not assume
     bit-parity with :func:`ann_search_packed`.
     """
-    # approx_max_k inside _pivot_seeds: the TPU-native bucketed top-k
-    # (ORDER of magnitude cheaper than the exact sort at [B, P]); seed
-    # selection tolerates approximation — the beam refines whatever it is
-    # handed
+    # approx_max_k inside _pivot_seeds: seed selection tolerates
+    # approximation — the beam refines whatever it is handed. On the GPU
+    # approx_max_k falls back to an exact sort (ROADMAP queue 1 item 2)
     e_d2, e_ids = _pivot_seeds(pivot_ids, pivot_vecs, q, ef)
     beam_d2, beam_ids = search_layer_packed(
         packed0, q, e_d2, e_ids, ef, max_iters, expand_e=expand_e
@@ -731,22 +729,17 @@ def _top_ef_dedup_oversampled(md2, mids, ef: int):
     sort of the survivors — the :func:`_pivot_seeds_pos` two-stage
     recipe applied to the probe merge. The full-width passes this
     replaces (a [B, probes*T + ef] id-sort for dedup plus a same-width
-    two-key sort) were a top cost of probed serving at high T·probes
-    (8k+ lanes per query at T=256/probes=32 — measured as the
-    difference between a ~17k and a ~25k-class gate point on the
-    heavy-tailed 1M regime).
+    two-key sort) are a top cost of probed serving at high T·probes
+    (8k+ lanes per query at T=256/probes=32).
 
     Reducing BEFORE dedup means duplicate ids (overlapping probed
     shortlists) crowd the oversampled pool — 4x oversampling hedges
     that, and the crowding is worst exactly where the graph walk is
     strongest (a dense region's shortlists overlap because its points
-    are near many probed pivots; such queries converge by walk alone —
-    DEVNOTES probe-coverage matrix). A true top-ef candidate is
-    otherwise lost only if it falls outside the approx top-4ef, far
-    into approx_max_k's high-recall regime. The committed recall
-    ladders (benchmarks/micro/SWEEP_HT_T256.json, SERVING_REGIMES.json)
-    gate the effect: measured recall was IDENTICAL to 4 decimals at
-    every grid point vs the exact full-width merge."""
+    are near many probed pivots; such queries converge by walk alone).
+    A true top-ef candidate is otherwise lost only if it falls outside
+    the approx top-4ef, far into approx_max_k's high-recall regime;
+    the heavy-tailed recall ladders gate the effect."""
     s = min(4 * ef, md2.shape[1])
     if md2.shape[1] > s:
         nv, idx = jax.lax.approx_max_k(-md2, s, recall_target=0.95)
@@ -779,7 +772,7 @@ def ann_search_seeded_probe(
 
     ``shortlist`` i32[P, T]: each pivot's T nearest stored points
     (built once by ``finalize(pivot_shortlist=T)`` as one tiled flat
-    search — pure MXU). At query time the ``probes`` nearest pivots'
+    search — one matmul per tile). At query time the ``probes`` nearest pivots'
     shortlist members are scored EXACTLY (one narrow row gather + fused
     dequant-l2sq, chunked) and merged into the seed set: a true NN in
     any probed region's shortlist is IN the beam from iteration 0 with
@@ -834,14 +827,15 @@ def ann_search_seeded_probe_packed(
     beam's row format verbatim).
 
     Same candidates, same exact scores, ~T× fewer gather rows: the
-    narrow path issues B×(probes·T) single-point gathers (row-RATE
-    bound at ~60-100 ns each — DEVNOTES), this path issues B×probes
+    narrow path issues B×(probes·T) single-point gathers, this path
+    issues B×probes
     wide-row gathers and decodes codes/scales/ids in-register
     (:func:`unpack_rows`). At T=128/probes=16 that is 2048 → 16 rows
     per query — the difference between the probe stage owning the
     gather budget and it riding along with the beam. Scoring loops one
     probe at a time so the dequantized [B, T, d] f32 temp stays
-    ~bounded (an all-probes [B, S, d] temp is 25 GB at serving batch)."""
+    ~bounded (an all-probes [B, S, d] temp is tens of GB at serving
+    batch)."""
     b = q.shape[0]
     e_d2, e_ids, pos = _pivot_seeds_pos(pivot_ids, pivot_vecs, q, ef)
     s = min(probes, pos.shape[1])
@@ -879,19 +873,19 @@ def _pivot_seeds(pivot_ids, pivot_vecs, q, ef):
 
 
 def _pivot_seeds_pos(pivot_ids, pivot_vecs, q, ef):
-    """Top-ef pivot seeds per query: one MXU matmul + two-stage top-k.
+    """Top-ef pivot seeds per query: one matmul + two-stage top-k.
     Returns (d2, ids, POSITIONS into the pivot table — the shortlist
     probe rows).
 
-    Stage 1 is ``approx_max_k`` OVERSAMPLED 2x (the TPU-native bucketed
-    top-k — an order of magnitude cheaper than the exact sort at
-    [B, P]); stage 2 exactly sorts the 2*ef survivors ([B, 2ef] — cheap).
+    Stage 1 is ``approx_max_k`` OVERSAMPLED 2x (a bucketed top-k where
+    the backend has one; on the GPU it falls back to an exact sort —
+    ROADMAP queue 1 item 2); stage 2 exactly sorts the 2*ef survivors ([B, 2ef] — cheap).
     A true top-ef seed is then lost only if it falls outside the approx
     top-2ef, which is far into approx_max_k's high-recall regime —
     single-stage approx at recall_target=0.95 measurably dropped the
     true-nearest seed for ~1 query in 20, and on heavy-tailed data a
     tail query's ONE in-blob seed being dropped is a whole-query miss
-    (the round-3 recall asymptote's first cause). Seed selection stays
+    Seed selection stays
     heuristic (ties/ULP order unspecified); results still come from the
     exact (d2, id)-ordered beam."""
     d2p = (
@@ -933,8 +927,8 @@ def ann_search_seeded_plain(
     descent (the iteration-count lever), so the only cost vs the packed
     path is ~(1+2·cap) narrow gather rows per expansion instead of one
     wide one — at large batch the narrow-row gather rate saturates and
-    this lands within a small factor of packed QPS (measured in
-    benchmarks/bench_serving_memory.py). Same results as
+    this is expected within a small factor of packed QPS
+    (benchmarks/bench_serving_memory.py measures it). Same results as
     :func:`ann_search_seeded` given the same seeds."""
     e_d2, e_ids = _pivot_seeds(pivot_ids, pivot_vecs, q, ef)
     beam_d2, beam_ids = search_layer(

@@ -1,6 +1,6 @@
 """Quantized point storage, structure-of-arrays.
 
-TPU-native equivalent of the reference's ``points`` crate: ``SimplePoints``
+device-native equivalent of the reference's ``points`` crate: ``SimplePoints``
 (``points/src/points.rs:33-169``) holding ``Point { id, level, QuantVec }``
 records (``points/src/point.rs:5-10``) becomes three dense device arrays —
 ``codes`` uint8[N, d], ``scales`` float32[N, 2] and ``levels`` int32[N] —

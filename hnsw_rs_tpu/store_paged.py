@@ -12,7 +12,7 @@ test is commented out). Here the equivalent is complete:
   available), an LRU block cache (the ``PointsDisk`` HashMap buffer
   analogue, ``disk.rs:35-99``);
 - streaming **exact search**: blocks are streamed through the device in
-  large contiguous chunks (TPU-friendly sequential IO — no per-point
+  large contiguous chunks (accelerator-friendly sequential IO — no per-point
   gather) with a running top-k merge, so collections far larger than HBM
   can be searched exactly.
 
@@ -154,7 +154,7 @@ class BlockStore:
 
     def iter_chunks(self, chunk_blocks: int = 64):
         """Stream (codes, scales, start_id) over contiguous block chunks —
-        sequential large reads, the TPU-friendly out-of-core access
+        sequential large reads, the accelerator-friendly out-of-core access
         pattern."""
         for b0 in range(0, self.nb_blocks, chunk_blocks):
             bks = min(chunk_blocks, self.nb_blocks - b0)

@@ -36,10 +36,10 @@ def eval_parser() -> argparse.ArgumentParser:
                    "(E>1: ~E× fewer lockstep iterations, build knob)")
     p.add_argument("--build-seeded", action="store_true",
                    help="seed layer-0 construction searches from the "
-                   "level>=1 pivot skeleton (one MXU matmul) instead of "
+                   "level>=1 pivot skeleton (one matmul) instead of "
                    "greedy descent; pair with a tighter --build-mi")
     p.add_argument("--cluster-build", action="store_true",
-                   help="cluster-bulk build: device k-means + dense MXU "
+                   help="cluster-bulk build: device k-means + dense "
                    "pools replace construction beam searches on every "
                    "layer (the measured-fastest bulk builder; "
                    "recall-gated, see build_cluster.py)")
@@ -52,7 +52,7 @@ def eval_parser() -> argparse.ArgumentParser:
                    "layout; E>1 amortizes per-iteration fixed costs)")
     p.add_argument("--pivots", type=int, default=0,
                    help="enable pivot-seeded serving with this many "
-                   "upper-layer pivots (one MXU matmul replaces the "
+                   "upper-layer pivots (one matmul replaces the "
                    "greedy descent; the million-scale headline path)")
     p.add_argument("--pq-m", type=int, default=0,
                    help="enable PQ-coded serving with this many bytes/"

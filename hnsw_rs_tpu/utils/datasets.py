@@ -5,10 +5,9 @@ The reference benches on GloVe text files loaded with ``load_glove_array``
 ground truth in ad-hoc JSON fixtures (``hnsw/src/helpers/data.rs:34-62``).
 The standard interchange for ANN evaluation is the ann-benchmarks HDF5
 layout (datasets ``train``, ``test``, ``neighbors``, ``distances``); this
-module reads it (via h5py, which is available in this image) and provides
+module reads it (via h5py, imported only when a file is read) and provides
 seeded synthetic generators with the same statistical shape for
-environments where the real files cannot be downloaded (this machine has
-no egress).
+environments where the real files cannot be downloaded.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ def load_ann_benchmarks_hdf5(path: str, limit: int = 0) -> Dataset:
     and dropped)."""
     try:
         import h5py
-    except ImportError as e:  # pragma: no cover - h5py is baked in here
+    except ImportError as e:  # pragma: no cover - h5py is optional
         raise RuntimeError(
             "h5py is required to read ann-benchmarks HDF5 files"
         ) from e
@@ -132,8 +131,8 @@ def synthetic_heavy_tailed(
     The skewed density is the adversarial case for cluster-friendly
     serving shortcuts (pivot seeding, IVF): most pivots land in the head
     clusters while tail queries need the graph to actually navigate. A
-    second committed regime for the headline bench so the QPS@recall
-    number is not single-distribution (round-3 hardening).
+    second regime for the headline bench so the QPS@recall number is not
+    single-distribution.
     """
     rng = np.random.default_rng(seed + 1)
     if n_clusters is None:

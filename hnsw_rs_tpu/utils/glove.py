@@ -3,7 +3,7 @@
 Equivalent of ``hnsw/src/helpers/glove.rs`` — parses "word v1 v2 ..." rows
 (``load_glove_array``, ``glove.rs:14-71``) and computes brute-force nearest
 neighbors (``brute_force_nns``, ``glove.rs:73-109``), but batched on device
-via the MXU instead of a scalar host loop. Paths are repo-relative (the
+as a matmul instead of a scalar host loop. Paths are repo-relative (the
 reference hardcodes the author's home directory, ``template.rs:520-522``).
 """
 

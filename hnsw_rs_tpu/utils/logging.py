@@ -4,7 +4,7 @@ The reference uses the ``log`` crate with ``env_logger`` controlled by
 ``RUST_LOG`` (``eval_glove/src/main.rs:18``; trace statements throughout
 ``searcher.rs``/``results.rs``). Equivalent here: stdlib logging under the
 ``hnsw_rs_tpu`` namespace controlled by ``HNSW_LOG`` (trace/debug/info/
-warn/error), plus a JAX-profiler trace context for the TPU side (the
+warn/error), plus a JAX-profiler trace context for the device side (the
 reference's profiling support is build-config only, ``Cargo.toml:11-20``).
 """
 

@@ -88,8 +88,8 @@ def test_cluster_build_seeded_serving_and_persistence(built, tmp_path):
 def test_cluster_build_noalg4_recall_and_invariants():
     """select_alg4=False (the bench.py headline config): nearest-m
     select, with ALL diversity pruning left to the merge union chain.
-    Measured at 1M as unchanged-or-better recall at 1.5x the select
-    speed (DEVNOTES "select_alg4=False"); this pins the small-N recall
+    Measured at 1M as unchanged-or-better recall at a faster select;
+    this pins the small-N recall
     family plus the row invariants for that path."""
     ds = synthetic_clustered(N, D, n_queries=128, seed=11)
     idx = HNSW(12, ef_cons=48, dim=D)

@@ -2,7 +2,7 @@
 
 Density-proportional pivot sampling starves rare clusters (the
 heavy-tailed 1M serving failure — seeds ~3x further than the true
-neighbor, benchmarks/micro/diag_heavy_tailed.py); the k-center fill
+neighbor); the k-center fill
 must pick uncovered regions first."""
 
 import jax.numpy as jnp

@@ -30,7 +30,7 @@ def test_flat_matches_numpy_oracle():
     expect = numpy_oracle(queries, store, 10)
     _, got_exact = idx.search(queries, 10, exact=True)
     np.testing.assert_array_equal(got_exact, expect)
-    # MXU form: same set (float assoc. differences may permute near-ties)
+    # matmul form: same set (float assoc. differences may permute near-ties)
     _, got_mxu = idx.search(queries, 10)
     overlap = np.mean(
         [len(set(a) & set(b)) / 10.0 for a, b in zip(got_mxu, expect)]
@@ -149,25 +149,6 @@ def test_flat_tiled_matches_sort_path():
     # the public API routes large-N inexact searches through the tiled path
     d_api, i_api = _flat_search(q, codes, scales, normsq, 10, False)
     np.testing.assert_array_equal(np.asarray(i_api), np.asarray(i_tile))
-
-
-def test_flat_search_fused_path_matches_default():
-    # the wired-in fused Pallas path (interpret on CPU) == the sort path
-    store = gen_rand_vecs(3000, 40, seed=21)
-    queries = gen_rand_vecs(9, 40, seed=22)
-    index = FlatIndex(40)
-    index.add(store)
-    dw, iw = index.search(queries, 10)
-    df, if_ = index.search(queries, 10, fused=True)
-    np.testing.assert_array_equal(iw, if_)
-    np.testing.assert_allclose(dw, df, rtol=1e-5, atol=1e-6)
-
-
-def test_flat_search_fused_rejects_fullvec():
-    index = FlatIndex(8, quantized=False)
-    index.add(gen_rand_vecs(32, 8, seed=23))
-    with pytest.raises(ValueError):
-        index.search(gen_rand_vecs(2, 8, seed=24), 4, fused=True)
 
 
 def test_merge_sorted_equals_full_sort():

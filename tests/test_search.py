@@ -368,7 +368,7 @@ def test_packed_probe_matches_narrow_probe():
 
 def test_build_shortlist_chunked_matches_single_dispatch():
     """_build_shortlist chunks the pivot-query batch (a 32k-pivot single
-    dispatch holds a 16 GB [B, tile] temp — measured OOM at 1M, round 4);
+    dispatch holds a 16 GB [B, tile] temp);
     chunked output must equal the one-dispatch result row-for-row."""
     import jax.numpy as jnp
     import numpy as np

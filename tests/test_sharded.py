@@ -1,6 +1,6 @@
 """Mesh-parallel tests on the 8-device virtual CPU mesh: query DP over a
 replicated index and sharded sub-index search with distributed top-k merge
-(the TPU-native analogue of the reference's concurrency test,
+(the device-native analogue of the reference's concurrency test,
 ``graph/src/graph.rs:463-486``)."""
 
 import numpy as np

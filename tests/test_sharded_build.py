@@ -177,7 +177,7 @@ def test_concurrent_cluster_build():
 
 
 def test_concurrent_cluster_build_recall_at_scale():
-    """VERDICT r3 #3: the shard-concurrent cluster build gated against a
+    """The shard-concurrent cluster build gated against a
     flat exact oracle at >=10k points (the small-N tests can hide
     cluster-granularity pathologies — the round-3 megacluster bug was
     invisible below ~1k). 8 shards, clustered data, seeded serving (the
